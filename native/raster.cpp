@@ -1,7 +1,7 @@
 // Native host raster engine for text_alignment_tpu.
 //
 // The reference delegated its raster work to Gamera's C++ plugins
-// (SURVEY.md §2.9). The TPU path replaces those with XLA kernels; this
+// (SURVEY.md §2.9). The device path replaces those with XLA kernels; this
 // module is the native *host* engine: a drop-in accelerated implementation
 // of the numpy oracle's semantics (ops/oracle.py) used by the CPU
 // fallback/baseline path and by host-side stage code. Exposed via a plain C

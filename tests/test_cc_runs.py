@@ -178,3 +178,109 @@ def test_full_page_size_spiral_converges():
     got, ok = cc_runs.despeckle(jnp.asarray(img), 3, 1 << 17)
     _ok(ok)
     np.testing.assert_array_equal(np.asarray(got), oracle.despeckle(img, 3))
+
+
+# -- scan-line geometries: word-boundary widths, full rows, rings with
+# late merges, corner pixels, bars; each through all filter modes --
+
+def _scanline_cases():
+    rng = np.random.default_rng(0)
+    cases = {
+        "random25": rng.random((100, 90)) < 0.25,
+        "random60": rng.random((80, 130)) < 0.6,
+        "empty": np.zeros((70, 64), bool),
+        "full": np.ones((66, 95), bool),
+        "W32": rng.random((40, 32)) < 0.3,
+        "W33": rng.random((40, 33)) < 0.3,
+        "fullrows": np.ones((40, 100), bool),
+    }
+    c = np.zeros((50, 50), bool)
+    c[0, 0] = c[0, -1] = c[-1, 0] = c[-1, -1] = True
+    cases["corners"] = c
+    v = np.zeros((90, 70), bool)
+    v[:, ::3] = True
+    cases["bars"] = v
+    s = np.zeros((64, 64), bool)
+    for r in range(0, 30, 4):
+        s[r, r:64 - r] = True
+        s[63 - r, r:64 - r] = True
+        s[r:64 - r, r] = True
+        s[r:64 - r, 63 - r] = True
+    cases["rings"] = s  # rings with full-row runs + late merges
+    return cases
+
+
+SCANLINE = _scanline_cases()
+
+
+@pytest.mark.parametrize("name", sorted(SCANLINE))
+@pytest.mark.parametrize("k", [0, 3, 25, 175])
+def test_scanline_filter_modes_match_oracle(name, k):
+    img = SCANLINE[name]
+    j = jnp.asarray(img)
+    got, ok = cc_runs.despeckle(j, k, R_SMALL)
+    _ok(ok)
+    np.testing.assert_array_equal(np.asarray(got), oracle.despeckle(img, k))
+    got, ok = cc_runs.despeckle_white(j, k, R_SMALL)
+    _ok(ok)
+    np.testing.assert_array_equal(np.asarray(got),
+                                  ~oracle.despeckle(~img, k))
+    got, ok = cc_runs.remove_tall_ccs(j, max(k, 1), R_SMALL)
+    _ok(ok)
+    np.testing.assert_array_equal(np.asarray(got),
+                                  oracle.remove_tall_ccs(img, max(k, 1)))
+    got, ok = cc_runs.remove_tall_ccs(j, max(k, 1), R_SMALL, by_area=True)
+    _ok(ok)
+    np.testing.assert_array_equal(np.asarray(got),
+                                  oracle.remove_big_ccs(img, max(k, 1)))
+
+
+@pytest.mark.parametrize("name", sorted(SCANLINE))
+def test_scanline_preproc_clean_chain(name):
+    img = SCANLINE[name]
+    got, ok = cc_runs.preproc_clean(jnp.asarray(img), 10, 20, R_SMALL)
+    _ok(ok)
+    want = oracle.remove_tall_ccs(
+        ~oracle.despeckle(~oracle.despeckle(img, 10), 10), 20)
+    np.testing.assert_array_equal(np.asarray(got), want)
+
+
+def test_despeckle_fuzz_parity():
+    rng = np.random.default_rng(7)
+    for _ in range(40):
+        H = int(rng.integers(3, 80))
+        W = int(rng.integers(3, 200))
+        img = rng.random((H, W)) < float(rng.uniform(0.05, 0.8))
+        k = int(rng.integers(0, 30))
+        got, ok = cc_runs.despeckle(jnp.asarray(img), k, R_SMALL)
+        _ok(ok)
+        np.testing.assert_array_equal(np.asarray(got),
+                                      oracle.despeckle(img, k))
+        got, ok = cc_runs.despeckle_white(jnp.asarray(img), k, R_SMALL)
+        _ok(ok)
+        np.testing.assert_array_equal(np.asarray(got),
+                                      ~oracle.despeckle(~img, k))
+
+
+def test_strict_false_area_mode_chain():
+    """sat_by_area threads through preproc_clean (the strict=False
+    corrected filter): a wide short blob goes, a tall thin one stays."""
+    ink = np.zeros((240, 260), bool)
+    ink[10:13, 20:220] = True    # wide: nrows 3, area 600
+    ink[30:230, 240:241] = True  # tall: nrows 200, area 200
+    got, ok = cc_runs.preproc_clean(jnp.asarray(ink), 0, 300, R_SMALL,
+                                    sat_by_area=True)
+    _ok(ok)
+    got = np.asarray(got)
+    np.testing.assert_array_equal(got, oracle.remove_big_ccs(ink, 300))
+    assert not got[11, 100] and got[100, 240]  # area filter, not nrows
+
+
+def test_cc_table_count_overflow():
+    """More components than table rows must report ok=False (host
+    fallback), never a truncated table."""
+    img = np.zeros((64, 64), bool)
+    img[::2, ::2] = True  # 1024 components
+    _, _, ok = cc_runs.cc_table_compact(jnp.asarray(img), max_ccs=100,
+                                        max_runs=R_SMALL)
+    assert not bool(np.asarray(ok))

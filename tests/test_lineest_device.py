@@ -218,50 +218,6 @@ def test_json_dict_single_line_page():
     assert d["median_line_spacing"] == 0.0 and d["syl_boxes"] == []
 
 
-def test_pallas_failure_falls_back_to_scan(monkeypatch):
-    """A Mosaic kernel failure must degrade to the XLA scan (flag flip +
-    one retry), not take down the OCR stage."""
-    import jax
-    from text_alignment_tpu.models import lstm_jax, lstm_pallas
-
-    rng = np.random.default_rng(11)
-    # an odd width no other test uses: the jit caches are keyed by shape
-    # bucket, and only a FRESH trace consults the (patched) routing
-    strip = np.zeros((60, 313), dtype=bool)
-    strip[20:40] = rng.random((20, 313)) < 0.4
-
-    # force the pallas route on (we're on CPU) and make the kernel blow up
-    monkeypatch.setattr(lstm_jax, "_pallas_disabled", [False])
-    monkeypatch.setattr(
-        lstm_jax, "_use_pallas_scan",
-        lambda *a: not lstm_jax._pallas_disabled[0],
-    )
-    monkeypatch.setattr(
-        lstm_pallas, "bidir_scan_pallas",
-        lambda *a, **k: (_ for _ in ()).throw(RuntimeError("mosaic boom")),
-    )
-    # ns=104 is used by no other test: the inner bilstm jit caches on the
-    # params/frames AVALs, so a unique hidden size guarantees a fresh
-    # trace (which is when the routing is consulted) regardless of order
-    def make_rec104():
-        import jax
-        from text_alignment_tpu.models.lstm_jax import init_bilstm
-        from text_alignment_tpu.models.recognizer import SeqRecognizer
-        from text_alignment_tpu.models.codec import Codec
-
-        codec = Codec()
-        params = init_bilstm(jax.random.PRNGKey(0), 48, 104, len(codec))
-        return SeqRecognizer(params, codec, normalize_on_device=True)
-
-    rec2 = make_rec104()
-    got = rec2.recognize_batch([strip])
-    assert lstm_jax._pallas_disabled[0]  # flag flipped by the guard
-    # and the rows are the scan path's, produced without raising
-    rec3 = make_rec104()
-    monkeypatch.setattr(lstm_jax, "_use_pallas_scan", lambda *a: False)
-    assert got == rec3.recognize_batch([strip])
-
-
 def test_pack_strips_ladder_rungs():
     """Padded pack dims ride the mult-32 height / mult-256 width ladders
     (uploads and every H/W-proportional normalize stage scale with them),
@@ -284,58 +240,6 @@ def test_pack_strips_ladder_rungs():
         h, w = g.shape
         assert np.array_equal(unpacked[b, :h, :w], g)
         assert not unpacked[b, h:].any() and not unpacked[b, :, w:].any()
-
-
-def test_pallas_failure_at_collect_falls_back(monkeypatch):
-    """Async dispatches only FAIL at materialization; a kernel-engaged
-    batch whose combined download blows up must disable the kernel and
-    re-dispatch through the scan instead of taking down collect_async."""
-    import jax
-    from text_alignment_tpu.models import lstm_jax, lstm_pallas
-    from text_alignment_tpu.models import recognizer as rec_mod
-    from text_alignment_tpu.models.lstm_jax import init_bilstm
-    from text_alignment_tpu.models.recognizer import SeqRecognizer
-    from text_alignment_tpu.models.codec import Codec
-
-    rng = np.random.default_rng(13)
-    strip = np.zeros((60, 331), dtype=bool)  # width unique to this test
-    strip[20:40] = rng.random((20, 331)) < 0.4
-
-    # force the pallas ROUTE on, but make the "kernel" the working scan so
-    # the async dispatch itself succeeds; the failure is injected at the
-    # combined-download materialization instead
-    monkeypatch.setattr(lstm_jax, "_pallas_disabled", [False])
-    monkeypatch.setattr(
-        lstm_jax, "_use_pallas_scan",
-        lambda *a: not lstm_jax._pallas_disabled[0],
-    )
-    monkeypatch.setattr(lstm_pallas, "bidir_scan_pallas",
-                        lstm_jax._bidir_scan)
-
-    def make_rec106():
-        codec = Codec()
-        params = init_bilstm(jax.random.PRNGKey(0), 48, 106, len(codec))
-        return SeqRecognizer(params, codec, normalize_on_device=True)
-
-    real_concat = rec_mod.jnp.concatenate
-    boom = {"armed": True}
-
-    def concat_boom(*a, **k):
-        if boom["armed"]:
-            boom["armed"] = False
-            raise RuntimeError("runtime boom at download")
-        return real_concat(*a, **k)
-
-    monkeypatch.setattr(rec_mod.jnp, "concatenate", concat_boom)
-    rec = make_rec106()
-    handle = rec.dispatch_async([strip])
-    rows = rec.collect_async([handle])
-    assert lstm_jax._pallas_disabled[0]  # guard flipped at collect time
-    # rows equal the plain scan route's
-    monkeypatch.setattr(rec_mod.jnp, "concatenate", real_concat)
-    monkeypatch.setattr(lstm_jax, "_use_pallas_scan", lambda *a: False)
-    rec2 = make_rec106()
-    assert rows == [rec2.recognize_batch([strip])]
 
 
 def test_onebit_front_matches_general_path():
@@ -365,26 +269,85 @@ def test_onebit_front_matches_general_path():
     assert int(a[1][1]) == 0 and int(a[1][2]) == 0  # blank + all-ink
 
 
-def test_banded_conv_route_matches_legacy_routes():
-    """The accelerator-default banded-Toeplitz matmul filter
-    (lineest_jax._conv_rows_banded) must match both legacy routes (FFT
-    below B=128, grouped conv at B>=128) to float32 summation-order
-    tolerance — it is the production route on TPU but CPU tests default
-    away from it, so pin it here explicitly."""
+@pytest.fixture(scope="module")
+def sweep_strips():
+    """64 onebit strips 600-760 px wide: a cross-folio sweep of the kind
+    that packs at B >= 64, Wp >= 640."""
+    out = []
+    for i in range(16):
+        page = make_page(
+            np.random.default_rng(300 + i), n_lines=4, words_per_line=3,
+            H=800, W=800, char_h=40, char_w=28, gap=5, space_w=34,
+            line_spacing=170, speckles=20, margin_x=20, angle=0.3,
+        )
+        image, eroded, _ = preprocess_images(page.image, backend="hybrid")
+        s, _, _ = identify_text_lines(image, eroded, backend="hybrid",
+                                      verbose=False)
+        out.extend(s)
+    return out[:64]
+
+
+def test_sweep_shape_normalizer_matches_scipy(sweep_strips):
+    """The XLA normalizer on the onebit production input at a sweep shape
+    (B=64, Wp=768): identical lengths, frames equal to the scipy
+    normalizer outside the knife-edge boundary set."""
+    import jax.numpy as jnp
+
+    strips = sweep_strips
+    assert len(strips) == 64
+    assert max(s.img.shape[1] for s in strips) > 640
+    grey, hs, ws = _batchify(strips, Hp=96, Wp=768)
+    frames_d, lengths_d, _ = normalize_batch_device(
+        jnp.asarray(grey.astype(np.uint8)), hs, ws, t_max=1024,
+        onebit=True)
+    frames_d = np.asarray(frames_d)
+    lengths_d = np.asarray(lengths_d)
+    for b, s in enumerate(strips):
+        fr, _ = normalize_strip(s.img.astype(bool))
+        assert lengths_d[b] == fr.shape[0], b
+        err = np.abs(frames_d[b, : fr.shape[0]] - fr)
+        assert np.mean(err > 1e-3) < 0.05, b
+        assert np.median(err) < 1e-5, b
+
+
+@pytest.mark.parametrize("B,R,W,Hp", [
+    (5, 6, 300, 40),    # kernel about as wide as the row
+    (2, 3, 65, 40),     # kernel wider than the row
+    (3, 2, 1536, 96),   # the sweep's strip width and padded height
+])
+def test_conv_rows_matches_float64_oracle(B, R, W, Hp):
+    """The FFT h-gauss filter (lineest_jax._conv_rows) equals a float64
+    correlation with the same zero padding, on every row."""
     import jax.numpy as jnp
     from text_alignment_tpu.models import lineest_jax as lj
 
-    rng = np.random.default_rng(7)
-    for B, R, W, Hp in [(4, 16, 512, 48), (6, 24, 700, 96)]:
-        hf = jnp.asarray(rng.uniform(20, Hp, B), np.float32)
-        K = 2 * int(4.0 * Hp + 0.5) + 1
-        k = lj._gauss_kernel_bank(1.0 * hf, K)
-        x = jnp.asarray(rng.standard_normal((B, R, W)), jnp.float32)
-        got = np.asarray(lj._conv_rows_banded(x, k))
-        want = np.asarray(lj._conv_rows(x, k))  # CPU default: FFT route
-        np.testing.assert_allclose(got, want, atol=5e-6)
-        # direct float64 correlate oracle on one row
-        kb = np.asarray(k, np.float64)
-        xp = np.pad(np.asarray(x, np.float64), ((0, 0), (0, 0), (K // 2, K // 2)))
-        ref = np.correlate(xp[0, 0], kb[0], mode="valid")
-        np.testing.assert_allclose(got[0, 0], ref, atol=5e-6)
+    rng = np.random.default_rng(11)
+    hf = jnp.asarray(rng.uniform(10, Hp, B), np.float32)
+    K = 2 * int(4.0 * Hp + 0.5) + 1
+    k = lj._gauss_kernel_bank(1.0 * hf, K)
+    x = rng.standard_normal((B, R, W)).astype(np.float32)
+    got = np.asarray(lj._conv_rows(jnp.asarray(x), k))
+    kb = np.asarray(k, np.float64)
+    xp = np.pad(x.astype(np.float64), ((0, 0), (0, 0), (K // 2, K // 2)))
+    for b in range(B):
+        for r in range(R):
+            ref = np.correlate(xp[b, r], kb[b], mode="valid")
+            np.testing.assert_allclose(got[b, r], ref, atol=5e-6)
+
+
+def test_collect_async_propagates_device_errors(monkeypatch):
+    """A failure when the async OCR results are gathered reaches the
+    caller: there is no silent retry on another engine."""
+    from text_alignment_tpu.models import recognizer as rec_mod
+
+    rec = _make_rec()
+    strip = np.zeros((60, 200), dtype=bool)
+    strip[20:40, 10:190] = np.random.default_rng(2).random((20, 180)) < 0.4
+    handle = rec.dispatch_async([strip])
+
+    def boom(*a, **k):
+        raise RuntimeError("device failure at download")
+
+    monkeypatch.setattr(rec_mod.jnp, "concatenate", boom)
+    with pytest.raises(RuntimeError, match="device failure"):
+        rec.collect_async([handle])

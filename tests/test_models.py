@@ -371,49 +371,21 @@ def test_trainer_full_state_resume_exact(tmp_path, rng):
     assert loss_direct == loss_resumed
 
 
-def test_bidir_scan_pallas_interpret_matches_scan(rng):
-    """The Mosaic BiLSTM recurrence (lstm_pallas) must reproduce the XLA
-    scan to float32 roundoff, padded lanes (ns < 128) included."""
-    import jax
-    from text_alignment_tpu.models.lstm_jax import (
-        init_bilstm, _bidir_scan, _reverse_by_length,
-    )
-    from text_alignment_tpu.models.lstm_pallas import (
-        bidir_scan_pallas, pallas_ok,
-    )
-
-    for B, T, ns, ni in [(8, 128, 100, 48), (16, 64, 20, 8), (8, 64, 128, 48)]:
-        assert pallas_ok(B, T, ns)
-        params = init_bilstm(jax.random.PRNGKey(2), ni, ns, 16,
-                             initial_range=0.3)
-        xs = jnp.asarray(rng.normal(0, 1, (B, T, ni)).astype(np.float32))
-        lens = jnp.asarray(rng.integers(T // 2, T + 1, B).astype(np.int32))
-        xs_rev = _reverse_by_length(xs, lens)
-        f0, b0 = _bidir_scan(params.fwd, params.bwd, xs, xs_rev)
-        f1, b1 = bidir_scan_pallas(params.fwd, params.bwd, xs, xs_rev,
-                                   interpret=True)
-        np.testing.assert_allclose(f0, f1, rtol=2e-5, atol=2e-6)
-        np.testing.assert_allclose(b0, b1, rtol=2e-5, atol=2e-6)
-    # the pack ladder's mult-of-4 batches below 16 (a 9-12 line folio
-    # packs at B=12) must ENGAGE the kernel — the caller pads to the next
-    # multiple of 8 on device (lstm_jax.bilstm_forward_batched)
-    assert pallas_ok(12, 64, 100)
-    B, T, ns, ni = 12, 64, 100, 48
-    params = init_bilstm(jax.random.PRNGKey(5), ni, ns, 16,
-                         initial_range=0.3)
-    xs = jnp.asarray(rng.normal(0, 1, (B, T, ni)).astype(np.float32))
-    lens = jnp.asarray(rng.integers(T // 2, T + 1, B).astype(np.int32))
-    xs_rev = _reverse_by_length(xs, lens)
-    f0, b0 = _bidir_scan(params.fwd, params.bwd, xs, xs_rev)
-    padw = ((0, 4), (0, 0), (0, 0))
-    f1, b1 = bidir_scan_pallas(params.fwd, params.bwd,
-                               jnp.pad(xs, padw), jnp.pad(xs_rev, padw),
-                               interpret=True)
-    np.testing.assert_allclose(f0, f1[:B], rtol=2e-5, atol=2e-6)
-    np.testing.assert_allclose(b0, b1[:B], rtol=2e-5, atol=2e-6)
-
-    # odd shapes must be rejected toward the scan fallback
-    assert not pallas_ok(4, 128, 100)   # B below one sublane tile
-    assert not pallas_ok(10, 128, 100)  # B not a multiple of 4
-    assert not pallas_ok(8, 129, 100)   # T not divisible by the block
-    assert not pallas_ok(8, 128, 200)   # hidden width beyond one lane tile
+@pytest.mark.parametrize("T", [3, 15, 16, 17])
+def test_bilstm_scan_matches_numpy_oracle_at_padded_length(rng, T):
+    """The unrolled scan computes the recurrence whatever the padded
+    length: below one unroll, not a multiple of it, and a multiple of it,
+    with lines shorter than the padding."""
+    d = _np_params(rng)
+    params = params_from_np(d)
+    lengths = [T, max(1, T // 4), max(1, T - 4)]
+    xs = np.zeros((3, T, 8), np.float32)
+    refs = []
+    for b, L in enumerate(lengths):
+        x = rng.normal(0, 1, (L, 8)).astype(np.float32)
+        xs[b, :L] = x
+        refs.append(bilstm_forward_np(d, x))
+    out = np.asarray(bilstm_forward_batched(
+        params, jnp.asarray(xs), jnp.asarray(lengths, jnp.int32)))
+    for b, L in enumerate(lengths):
+        np.testing.assert_allclose(out[b, :L], refs[b], rtol=2e-5, atol=2e-6)

@@ -229,3 +229,68 @@ def test_fuzz_random_scorings_all_fills_agree():
                 t, o, DensePtrView(*fill_native(t, o, sc))
             )
             assert nat == ref, (trial, sc_list)
+
+
+def test_device_pairs_sharing_a_bucket_match_host():
+    """Mixed-length pairs that share one (L, NoP) bucket ride a single
+    vmapped device dispatch; each alignment equals its host fill."""
+    from text_alignment_tpu.align.nw_jax import _bucket, align_pairs_jax
+
+    rng = random.Random(7)
+    sc = resolve_scoring(None)
+    pairs = [_random_pair(rng, n, m, "abcde ")
+             for n, m in ((40, 55), (100, 90), (7, 120))]
+    assert len({(_bucket(len(t) + 1), _bucket(len(o) + 1))
+                for t, o in pairs}) == 1
+    got = align_pairs_jax(pairs, sc, min_device_cells=0)
+    for (t, o), g in zip(pairs, got):
+        assert g == perform_alignment(t, o, backend="host")
+
+
+def test_device_grid_per_row_scoring_across_chunks():
+    """The scoring grid reads each row's own parameters: rows split over
+    several chunks (the last one partial) each equal the host fill under
+    that scoring."""
+    from text_alignment_tpu.align.nw_jax import align_grid_jax
+
+    rng = random.Random(3)
+    t, o = _random_pair(rng, 60, 85, "abcde ")
+    params = [
+        [5, -4, -2, -2, 0, 0],
+        [8, -4, -7, -7, -3, 0],
+        [11, -10, -7, -2, -5, 0],
+        [5, -7, -2, -7, 0, -5],
+        [8, -10, -5, -5, 0, -3],
+    ]
+    got = align_grid_jax(t, o, params, chunk=2)
+    assert len(got) == len(params)
+    for p, g in zip(params, got):
+        assert tuple(g) == tuple(perform_alignment(
+            t, o, scoring_system=list(p), backend="host")), p
+
+
+@pytest.mark.parametrize("n,m", [(90, 300), (300, 90)])
+def test_device_pointers_rectangular_match_host(n, m):
+    """Rectangular problems (different transcript and OCR buckets): the
+    device's diagonal-layout pointers trace back to the host alignment."""
+    rng = random.Random(n * 1000 + m)
+    t, o = _random_pair(rng, n, m, "abcde ")
+    t, o = t + [" "], o + [" "]
+    sc = resolve_scoring(None)
+    want = traceback(t, o, DensePtrView(*fill_host_fast(t, o, sc)))
+    assert traceback(t, o, DiagPtrView(fill_jax_packed(t, o, sc))) == want
+
+
+def test_device_traceback_ops_replay_match_host():
+    """The on-device traceback's op stream, replayed on the host, equals
+    the host traceback — windows ending mid-unroll and rectangular shapes
+    included."""
+    from text_alignment_tpu.align.nw_jax import align_jax_ops, replay_ops
+
+    sc = resolve_scoring(None)
+    rng = random.Random(5)
+    for n, m in ((40, 55), (100, 230), (230, 100), (7, 120)):
+        t, o = _random_pair(rng, n, m, "abcde ")
+        t, o = t + [" "], o + [" "]
+        want = traceback(t, o, DensePtrView(*fill_host_fast(t, o, sc)))
+        assert replay_ops(t, o, *align_jax_ops(t, o, sc)) == want, (n, m)

@@ -6,8 +6,8 @@ oracle.rotation_angle_projections / host_native.rotation_angle_projections
 textAlignPreprocessing.py:183): same Q16 shift grids, same exact integer
 squared-derivative criterion, same first-max tie rule, same coarse-to-fine
 recipe. On CPU JAX (this suite) the program lowers to the same integer
-formulas, so parity here transfers to TPU (re-checked on hardware by
-tests/test_tpu_hw.py).
+formulas, so parity here transfers to the GPU (re-checked on the card by
+tests/test_gpu_hw.py).
 """
 
 import json

@@ -1,11 +1,11 @@
-"""text_alignment_tpu — a TPU-native (JAX/XLA/Pallas) text-alignment framework.
+"""text_alignment_tpu — a JAX/XLA text-alignment framework.
 
 Given an image of the text layer of a chant manuscript and a transcript of the
 chant text on that page, locates every syllable of the transcript on the page
 and emits a JSON list of syllable bounding boxes (capability parity with the
 reference pipeline documented in SURVEY.md; reference: alignToOCR.py:187-351).
 
-Layer map (TPU-first, not a translation):
+Layer map (batched device stages, not a translation):
 
 - ``ops``       — batched image kernels over page tensors (binarize, despeckle,
                   connected components, run filters, skew/rotate, projections);
@@ -26,13 +26,9 @@ Layer map (TPU-first, not a translation):
 
 __version__ = "0.1.0"
 
-# Persistent XLA compilation cache: enabled lazily and ONLY for non-CPU
+# Persistent XLA compilation cache: enabled lazily and only for accelerator
 # backends, via utils.compile_cache.ensure_compile_cache() — called from the
-# device-facing entry points (CLI, serve, bench, recognizer) right before
-# their first jit.  It must not be enabled at import time because the
-# effective platform is unknowable until the backend initializes, and on
-# XLA:CPU the cache's AOT path slows steps ~3.5x with zero hits (measured;
-# see tests/conftest.py).  Opt out with TEXT_ALIGNMENT_TPU_NO_COMPILE_CACHE=1.
+# device-facing entry points right before their first jit (see that module).
 
 from .charbox import CharBox
 from .textio import read_file

@@ -249,13 +249,9 @@ def scoring_grid(grid=DEFAULT_GRID) -> np.ndarray:
     return np.array(list(product(*grid)))
 
 
-def _grid_align_on_device() -> bool:
-    """True when an accelerator is available for the batched grid fill
-    (same platform pin logic as pipeline.process's NW routing: never force
-    backend initialization on a pure-host run)."""
-    from .utils.platform import accel_platform
-
-    return accel_platform()
+# grid_align="auto" sends a fixture's 729 alignments to the device batch
+# only from this many cells per pair up
+_GRID_DEVICE_MIN_CELLS = 250_000
 
 
 def grid_search(fixtures, shuffle=True, seed=None, backend="host",
@@ -290,8 +286,10 @@ def grid_search(fixtures, shuffle=True, seed=None, backend="host",
     if shuffle:
         rng = np.random.default_rng(seed)
         rng.shuffle(params_list)
-    if grid_align == "auto" and not _grid_align_on_device():
-        grid_align = "host"
+    if grid_align == "auto":
+        from .utils.platform import engine
+
+        grid_align = engine("grid")
     if grid_align != "host":
         # device fill engages even from host-backend evaluate runs: warm
         # the persistent compile cache before its first jit (idempotent;
@@ -335,17 +333,11 @@ def grid_search(fixtures, shuffle=True, seed=None, backend="host",
 
             chars = expand_abbreviations(list(fx["existing_ocr"]))
             ocr = "".join(c.char for c in chars)
-            # auto: a chant-page pair costs ~1 ms in the native host fill,
-            # so the device batch only pays off once the pair is large
-            # enough that 729 host fills dominate the chunked dispatches.
-            # On TPU the per-pair-scoring Pallas kernel wins from ~200^2
-            # (measured 0.24 s vs 0.5 s of host fills at 244^2); other
-            # accelerators run the vmapped scan, crossover ~500^2 warm.
-            import jax
-
-            thr = 40_000 if jax.default_backend() == "tpu" else 250_000
+            # auto: a chant-page pair is cheap in the native host fill, so
+            # the device batch only pays off once the pair is large enough
+            # that 729 host fills dominate the chunked dispatches
             if grid_align == "device" or (
-                len(fx["transcript"]) * len(ocr) >= thr
+                len(fx["transcript"]) * len(ocr) >= _GRID_DEVICE_MIN_CELLS
             ):
                 grid_aligns = _align_grid(
                     list(fx["transcript"]), list(ocr), params_list,

@@ -73,12 +73,12 @@ def save_line_png(img, path: str) -> None:
     """Write a line crop as a standard ink-black-on-white greyscale PNG
     (the polarity ``models.lineest.normalize_strip`` and ``train`` expect
     for non-bool images)."""
-    from PIL import Image
+    from .textio import write_png
 
     a = np.asarray(img)
     if a.dtype == bool:
         a = np.where(a, 0, 255).astype(np.uint8)  # True=ink -> black
-    Image.fromarray(a).save(path)
+    write_png(path, a)
 
 
 def extract_lines(page_image, out_dir: str, stem: str,
@@ -113,8 +113,9 @@ def _prefill_texts(lines_dir: str, stems: list[str], recognizer) -> dict:
         else:
             missing.append(stem)
     if recognizer is not None and missing:
-        from PIL import Image
+        from .textio import pillow
 
+        Image = pillow().Image
         imgs = [
             # crops from other tools may be RGB(A); the recognizer wants a
             # 2-D grey/onebit strip

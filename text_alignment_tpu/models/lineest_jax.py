@@ -1,17 +1,16 @@
-"""Batched on-device line normalization (the TPU version of lineest.py).
+"""Batched on-device line normalization (the device version of lineest.py).
 
 The scipy ``CenterNormalizer`` (lineest.py, mirroring ocrolib — the
-normalization baked into every trained ``.pyrnn`` model) costs ~30 ms per
-line on the single host core; at folio scale it dominates the OCR stage.
-This module runs the whole batch on the TPU so normalized frames are
-produced *on device* and flow straight into the BiLSTM without any
-host round-trip:
+normalization baked into every trained ``.pyrnn`` model) runs line by line
+on one host core; at folio scale it dominates the OCR stage. This module
+runs the whole batch on the accelerator so normalized frames are produced
+*on device* and flow straight into the BiLSTM without any host round-trip:
 
 - axis-0 Gaussian (sigma = h/2) as a per-strip masked kernel matrix
   (einsum over a (B, Hp, Hp) bank — Hp is small);
-- axis-1 Gaussian (sigma = h) and the center-smoothing Gaussian
-  (sigma = 0.3 h) as ONE grouped ``conv_general_dilated`` with a
-  per-strip kernel row (zero padding == scipy's constant mode);
+- axis-1 Gaussian (sigma = h) as a per-strip 1-D FFT product, the
+  center-smoothing Gaussian (sigma = 0.3 h) as a grouped
+  ``conv_general_dilated`` (zero padding == scipy's constant mode);
 - uniform filters as banded matmuls (rows) and a blocked-matmul prefix
   sum with shift-based window edges (columns) — exact same windows as
   scipy's ``uniform_filter1d`` incl. the int() size cast and size//2
@@ -44,46 +43,10 @@ _EXTRA = 0.3
 _TRUNCATE = 4.0
 
 
-def _precision_knob(name: str, default: str):
-    import os
-
-    v = os.environ.get(name, default).lower()
-    return {"highest": jax.lax.Precision.HIGHEST,
-            "high": jax.lax.Precision.HIGH,
-            "default": jax.lax.Precision.DEFAULT}[v]
-
-
-# Matmul precision knobs (diagnostic/experiment escape hatches):
-# _HI guards the center-finding chain (v/h gaussians, uniform means, the
-# center-smoothing conv) whose argmax + int casts are knife edges; _HI_POST
-# guards the dewarp/zoom interp matmuls DOWNSTREAM of the integer
-# center/r — their inputs are exact integers-as-floats and 2-sparse
-# bilinear weights, so precision there only perturbs the output frames at
-# the 1e-7 level, not the geometry.
-#
-# Measured A/B (real TPU, fused OCR sweep B=111/Wp=1536/t_max=640):
-# POST=high keeps bit-identical decode wire + rows but is NOT faster
-# (52.1 ms HIGHEST vs 53.4 ms HIGH — noise); the interp matmuls are not
-# the fused program's bottleneck at engaged shapes. Default stays
-# HIGHEST; the knobs remain for future shape regimes.
-_HI = _precision_knob("TEXT_ALIGNMENT_TPU_LINEEST_PRECISION", "highest")
-_HI_POST = _precision_knob("TEXT_ALIGNMENT_TPU_LINEEST_POST_PRECISION",
-                           "highest")
-
-
-def _smooth_dtype():
-    """TEXT_ALIGNMENT_TPU_LINEEST_DTYPE=bf16 runs the center-finding
-    smoothing chain's DATA (the (B, Hp, Wp) sm tensor through the h-gauss
-    conv and uniform means) in bfloat16 — a bandwidth experiment, NOT a
-    parity mode: bf16 rounding can move the smoothed-center argmax by a
-    row at plateau columns, which shifts the dewarp window like the
-    documented scipy-vs-f32 knife edges do. Gate any production use on
-    the decode-equality A/B (bench prints it; default stays f32)."""
-    import os
-
-    return (jnp.bfloat16
-            if os.environ.get("TEXT_ALIGNMENT_TPU_LINEEST_DTYPE") == "bf16"
-            else jnp.float32)
+# every matmul asks for full f32: the center-finding chain ends in argmax
+# and int casts whose knife edges a reduced-precision product (TF32, bf16
+# passes) would flip
+_HI = jax.lax.Precision.HIGHEST
 
 
 def _gauss_kernel_bank(sigma, kmax: int):
@@ -99,40 +62,6 @@ def _gauss_kernel_bank(sigma, kmax: int):
     return w / jnp.sum(w, axis=1, keepdims=True)
 
 
-def _conv_rows_banded(x, kernels):
-    """Same contract as :func:`_conv_rows` as a blocked-Toeplitz banded
-    matmul: the ~800-tap per-strip kernel becomes 2*ceil(r/128)+1 banks of
-    per-strip (128, 128) Toeplitz tiles and the filter runs as that many
-    batched matmuls — the MXU eats the taps and, unlike the grouped conv,
-    the schedule is fusion-planner-proof (see the lottery note below).
-
-    out[b, i, p] = sum_q x[b, i, q] * k[b, q - p + r]; blocking W by 128,
-    output block j only sees input blocks j-no..j+no (no = ceil(r/128)),
-    and each offset's tile T[b, o, ql, pl] = k[b, (o-no)*128 + ql - pl + r]
-    is a static-index window into the kernel row."""
-    B, R, W = x.shape
-    K = kernels.shape[1]
-    r = K // 2
-    bs = 128
-    nb = -(-W // bs)
-    no = -(-r // bs)
-    Wb = nb * bs
-    xp = jnp.pad(x, ((0, 0), (0, 0), (no * bs, no * bs + Wb - W)))
-    xb = xp.reshape(B, R, nb + 2 * no, bs)
-    q = jnp.arange(bs, dtype=jnp.int32)
-    d = (q[None, :, None] - q[None, None, :]
-         + (jnp.arange(2 * no + 1, dtype=jnp.int32)[:, None, None] - no) * bs)
-    idx = jnp.clip(d + r, 0, K - 1)                    # (2no+1, bs, bs) static
-    T = jnp.take(kernels, idx.reshape(-1), axis=1).reshape(
-        B, 2 * no + 1, bs, bs)
-    T = jnp.where((jnp.abs(d) <= r)[None], T, 0.0)
-    out = jnp.zeros((B, R, nb, bs), x.dtype)
-    for o in range(2 * no + 1):
-        out = out + jnp.einsum("brjq,bqp->brjp", xb[:, :, o:o + nb],
-                               T[:, o], precision=_HI)
-    return out.reshape(B, R, Wb)[..., :W]
-
-
 def _conv_rows(x, kernels):
     """Per-strip 1-D filter along the last axis with zero padding.
 
@@ -141,56 +70,18 @@ def _conv_rows(x, kernels):
     (B, R, W) where out[b, i, p] = sum_t kernels[b, t] *
     x_padded[b, i, p + t - K//2].
 
-    On accelerators the route is :func:`_conv_rows_banded` — measured on
-    v5e it beats both legacy routes isolated (5.8 vs 9.5 ms at
-    B=128/Hp=96/Wp=1536, 3.6 vs 8.1 FFT at B=32/K=1025) AND inside the
-    whole fused OCR program (sweep shape 24.7 -> 20.7 ms/exec, per-folio
-    8.1 -> 6.8), immune to the fusion lottery below. On CPU (tests, host
-    deployments) the matmul route is slower, so the two legacy routes
-    remain the CPU default and the diagnostic escape hatch
-    (TEXT_ALIGNMENT_TPU_CONV_ROUTE=banded|fft|conv):
-
-    - B < 128: FFT overlap product. The grouped conv this replaces made
-      the surrounding fused OCR program's schedule a lottery — XLA's
-      fusion planner around a ~800-tap feature_group_count=B conv picked
-      catastrophic strategies at most small/mid shapes (measured on v5e,
-      whole fused program: 124 ms at B=16/Hp=96, 170 ms at B=32/Hp=128,
-      193 ms at B=64/Hp=128 vs 6-19 ms with the FFT route, same
-      program otherwise). The FFT is also closer to the float64 oracle
-      than the conv (3e-7 vs 1e-6 max abs at production shapes).
-    - B >= 128: grouped conv + optimization_barrier. At the big
-      cross-folio sweep shape the conv schedule is healthy and beats the
-      FFT (24 vs 36 ms whole-program at B=128); the barrier stops the
-      planner from duplicating the conv into its three consumer fusions
-      (measured +27 ms without it).
+    Computed as one zero-padded FFT product: the taps run to ~800, and
+    the FFT beat a grouped direct conv inside the whole normalizer at
+    both the per-folio and the cross-folio sweep shape (CHANGES.md).
     """
-    import os
     B, R, W = x.shape
     K = kernels.shape[1]
-    route = os.environ.get("TEXT_ALIGNMENT_TPU_CONV_ROUTE")
-    if route is None:
-        route = "banded" if jax.default_backend() != "cpu" else (
-            "fft" if B < 128 else "conv")
-    if route == "banded":
-        return _conv_rows_banded(x, kernels)
-    if route == "fft" or (route != "conv" and B < 128):
-        L = W + K - 1
-        Lp = 1 << (L - 1).bit_length()
-        X = jnp.fft.rfft(x, n=Lp, axis=2)
-        Kf = jnp.fft.rfft(kernels[:, ::-1], n=Lp, axis=1)
-        y = jnp.fft.irfft(X * Kf[:, None, :], n=Lp, axis=2)
-        return y[:, :, K - 1 - K // 2 : K - 1 - K // 2 + W]
-    lhs = jnp.swapaxes(x, 0, 1)            # (R, B, W): N=R, C=B
-    rhs = kernels[:, None, ::-1]            # (B, 1, K) flipped: conv==corr
-    out = jax.lax.conv_general_dilated(
-        lhs, rhs,
-        window_strides=(1,),
-        padding=[(K // 2, K // 2)],
-        feature_group_count=B,
-        dimension_numbers=("NCH", "OIH", "NCH"),
-        precision=_HI,
-    )
-    return jax.lax.optimization_barrier(jnp.swapaxes(out, 0, 1))
+    L = W + K - 1
+    Lp = 1 << (L - 1).bit_length()
+    X = jnp.fft.rfft(x, n=Lp, axis=2)
+    Kf = jnp.fft.rfft(kernels[:, ::-1], n=Lp, axis=1)
+    y = jnp.fft.irfft(X * Kf[:, None, :], n=Lp, axis=2)
+    return y[:, :, K - 1 - K // 2 : K - 1 - K // 2 + W]
 
 
 def _windowed_mean_h(x, size):
@@ -199,9 +90,7 @@ def _windowed_mean_h(x, size):
     (constant mode), divided by size. x: (B, H, W); size: (B,).
 
     H is small (the padded strip height), so the windowed sum is one
-    banded per-strip (H, H) matmul — the MXU eats it; the cumsum+gather
-    formulation this replaces cost ~15x more on TPU (gathers lower to
-    serial select chains)."""
+    banded per-strip (H, H) matmul."""
     B, H, W = x.shape
     idx = jnp.arange(H, dtype=jnp.int32)
     s = jnp.maximum(size, 1)                       # (B,)
@@ -218,14 +107,10 @@ def _windowed_mean_w(x, size):
     contract as :func:`_windowed_mean_h` for per-strip window ``size``.
 
     W is large, so the inclusive prefix sum runs as a blocked lower-
-    triangular matmul (in-block on the MXU, tiny cross-block cumsum) and
-    the two window-edge lookups — which sit at a constant per-strip offset
-    from the output index — are batched ``dynamic_slice``s of the prefix
-    array padded with its own boundary values (right end clamps to the
-    row total, left end is the zero pad). A per-strip contiguous slice
-    lowers to one dynamic DMA per strip; the masked log2(W) roll ladder
-    this replaces rewrote the doubled tensor ten times (13.4 ms -> 5.0 ms
-    at B=128, Hp=128, Wp=1024 on v5e).
+    triangular matmul (in-block matmul, tiny cross-block cumsum) and the
+    two window-edge lookups — which sit at a constant per-strip offset
+    from the output index — are per-strip shifts of the prefix array,
+    with the right end clamped to the row total and the left end zero.
 
     The input is centered per row before the prefix sum (mean subtracted,
     added back as n_in * mu with the exact in-range tap count): the
@@ -252,7 +137,6 @@ def _windowed_mean_w(x, size):
     # Per-strip shifts of S — computed as traced-amount rolls whose wrapped
     # regions are overwritten by the clamp/zero selects (exact), instead of
     # materializing two (B, H, 2W) concat tensors for dynamic slices
-    # (~300 MB of HBM traffic at the sweep shape)
     c1 = s - 1 - s // 2
     c2 = s // 2 + 1
     x_idx = jnp.arange(W, dtype=jnp.int32)[None, None, :]
@@ -271,9 +155,7 @@ def _windowed_mean_w(x, size):
 
 def _dewarp_zoom(grey, mx, center, r, hs, ws, blank, onebit,
                  target_height, pad, t_max):
-    """Dewarp + bilinear zoom + prepare_line from a computed (center, r)
-    — shared by the XLA tail and the Pallas fused tail
-    (models.lineest_pallas)."""
+    """Dewarp + bilinear zoom + prepare_line from a computed (center, r)."""
     B, Hp, Wp = grey.shape
     i_idx = jnp.arange(Hp, dtype=jnp.int32)
     x_idx = jnp.arange(Wp, dtype=jnp.int32)
@@ -289,12 +171,11 @@ def _dewarp_zoom(grey, mx, center, r, hs, ws, blank, onebit,
     t_raw = jnp.clip(t_raw, 0, t_cap)
     t_raw = jnp.where(blank, 0, t_raw)
 
-    # The dewarp+zoom is gather-hostile on TPU (25M 2-D gathers lower to
-    # select chains / slow scatter-gather). Reformulate as matmuls:
+    # The dewarp+zoom as matmuls instead of ~25M 2-D gathers:
     #   1. circular-roll every column by s[x] = center[x] - r (7 masked
     #      rolls, elementwise) so the dewarp window starts at row 0;
     #   2. row interpolation = one-hot (B, 48, 2Hp) matmul against the
-    #      masked/tiled aligned image (the MXU eats this);
+    #      masked/tiled aligned image;
     #   3. column interpolation = one-hot (B, Wp, t_cap) matmul, chunked
     #      over the batch to bound the one-hot matrix memory.
     # Bilinear weights factor exactly across the two matmuls; only float
@@ -302,7 +183,7 @@ def _dewarp_zoom(grey, mx, center, r, hs, ws, blank, onebit,
     J = 2 * Hp
     s = center - r[:, None]                      # (B, Wp) window start
     t_mod = jnp.mod(s, Hp)
-    # the roll ladder + tile + mask chain is pure HBM traffic (log2(Hp)
+    # the roll ladder + tile + mask chain is pure memory traffic (log2(Hp)
     # full-tensor rewrites); on the onebit path every value is exactly
     # 0/1, so the whole chain runs in uint8 (4x less traffic) and the
     # convert back to f32 fuses into the row-interp matmul's operand
@@ -340,7 +221,7 @@ def _dewarp_zoom(grey, mx, center, r, hs, ws, blank, onebit,
         j_idx[None, None, :] == (v0 + 1)[..., None]
     ) * fv[..., None]
     out1 = jnp.einsum("buj,bjx->bux", Rv.astype(jnp.float32), masked,
-                      precision=_HI_POST)  # (B, 48, Wp)
+                      precision=_HI)  # (B, 48, Wp)
 
     # column-interp one-hot bank, chunked over the batch
     t_idx = jnp.arange(t_cap, dtype=jnp.float32)
@@ -356,7 +237,7 @@ def _dewarp_zoom(grey, mx, center, r, hs, ws, blank, onebit,
             xi == (x0c + 1)[:, None, :]
         ) * fxc[:, None, :]
         return jnp.einsum("bux,bxt->but", o1, Cx.astype(jnp.float32),
-                          precision=_HI_POST)
+                          precision=_HI)
 
     CH = min(128, B)
     nch = (B + CH - 1) // CH
@@ -422,9 +303,8 @@ def normalize_batch_device(grey, hs, ws, target_height=DEFAULT_TARGET_HEIGHT,
     if onebit:
         # the onebit path never materializes a float page: grey may arrive
         # as uint8 {0,1} (the recognizer's bit-unpacked input), every
-        # full-page intermediate before the matmuls stays 1 byte wide
-        # (HBM bandwidth is this program's wall), and the u8->f32
-        # converts fuse into the matmul operand reads
+        # full-page intermediate before the matmuls stays 1 byte wide,
+        # and the u8->f32 converts fuse into the matmul operand reads
         grey = jnp.where(valid, grey.astype(jnp.uint8), jnp.uint8(1))
         ink_b = valid & (grey == 0)
         any_ink = jnp.any(ink_b, axis=(1, 2))
@@ -464,64 +344,24 @@ def normalize_batch_device(grey, hs, ws, target_height=DEFAULT_TARGET_HEIGHT,
         jnp.abs(t_full) <= rad0.astype(jnp.float32)[:, None], wfull, 0.0
     )
     w0 = w0 / jnp.sum(wfull, axis=1)[:, None, None]
-    dt_sm = _smooth_dtype()
-
-    # full-chain Pallas route: v-gauss + h-gauss + tail in one kernel,
-    # sm never materializes in HBM (models.lineest_pallas; opt-in via
-    # TEXT_ALIGNMENT_TPU_TAIL=full until gated on hardware)
-    from . import lineest_pallas as _lpal0
-
-    if (onebit and dt_sm == jnp.float32 and _lpal0.engaged_full(Wp, B)
-            and not jax.config.jax_enable_x64):
-        k1max_f = 2 * int(_TRUNCATE * Hp * _SMOOTHNESS + 0.5) + 1
-        k1_f = _gauss_kernel_bank(_SMOOTHNESS * hf, k1max_f)
-        center, dsum, dcnt = _lpal0.center_from_temp(
-            temp, w0, k1_f, hs, ws, interpret=False)
-        mad = dsum.astype(jnp.float32) / jnp.maximum(dcnt, 1)
-        mad = jnp.where(dcnt > 0, mad, hf / 4.0)
-        r = (1.0 + _RANGE * mad).astype(jnp.int32)
-        r = jnp.clip(r, 1, Hp)
-        return _dewarp_zoom(grey, mx, center, r, hs, ws, blank, onebit,
-                            target_height, pad, t_max)
-
     sm = jnp.einsum("bij,bjx->bix", w0, temp.astype(jnp.float32),
-                    precision=_HI).astype(dt_sm)
+                    precision=_HI)
 
-    # axis-1 gaussian, sigma = smoothness * h, grouped conv
+    # axis-1 gaussian, sigma = smoothness * h
     k1max = 2 * int(_TRUNCATE * Hp * _SMOOTHNESS + 0.5) + 1
     k1 = _gauss_kernel_bank(_SMOOTHNESS * hf, k1max)
     sm = _conv_rows(sm, k1)
 
-    # Pallas fused tail (means -> argmax -> k2 smoothing -> MAD) keeps
-    # the strip in VMEM instead of streaming (B, Hp, Wp) tensors through
-    # HBM once per stage (models.lineest_pallas; engagement-gated:
-    # accelerator + onebit + f32 chain + wide buckets)
-    from . import lineest_pallas as _lpal
-
-    use_ptail = (onebit and dt_sm == jnp.float32
-                 and _lpal.engaged(Wp, B)
-                 and not jax.config.jax_enable_x64)
-    if use_ptail:
-        center, dsum, dcnt = _lpal.tail_from_sm(
-            sm.astype(jnp.float32), temp, hs, ws, interpret=False)
-        mad = dsum.astype(jnp.float32) / jnp.maximum(dcnt, 1)
-        mad = jnp.where(dcnt > 0, mad, hf / 4.0)
-        r = (1.0 + _RANGE * mad).astype(jnp.int32)
-        r = jnp.clip(r, 1, Hp)
-        return _dewarp_zoom(grey, mx, center, r, hs, ws, blank, onebit,
-                            target_height, pad, t_max)
-
     # + 0.001 * uniform_filter(sm, (0.5 h, w)); the uniform windows must
     # see zeros outside the strip's true (h, w) region (scipy's array ends
     # there), while our padded computation leaves garbage in the margins
-    sm_z = jnp.where(valid, sm, jnp.zeros((), dt_sm))
+    sm_z = jnp.where(valid, sm, 0.0)
     u = _windowed_mean_h(sm_z, (0.5 * hf).astype(jnp.int32))
     u = _windowed_mean_w(u, ws)
-    sm = (sm + jnp.asarray(0.001, dt_sm) * u.astype(dt_sm))
+    sm = sm + 0.001 * u
 
     # argmax over rows (restricted to i < h), first-max wins like numpy
-    sm = jnp.where(i_idx[None, :, None] < hs[:, None, None],
-                   sm.astype(jnp.float32), NEG)
+    sm = jnp.where(i_idx[None, :, None] < hs[:, None, None], sm, NEG)
     a = jnp.argmax(sm, axis=1).astype(jnp.float32)  # (B, Wp)
     a = jnp.where(x_idx[None, :] < ws[:, None], a, 0.0)
 

@@ -2,10 +2,9 @@
 
 The framework's first device CC implementation (``ops.device.cc_label``)
 propagates labels in the PIXEL domain under a data-dependent
-``lax.while_loop`` — correct, but a known compile-time pathology at page
-shape on remote-compile TPU runtimes (~49 min cold; docs/DESIGN.md). This
-module re-derives connected components the TPU-native way, with **static
-shapes and a fixed operation count**:
+``lax.while_loop`` — correct, but a compile-time pathology at page shape.
+This module re-derives connected components with **static shapes and a
+fixed operation count**:
 
 1. **Runs, not pixels.** Each row's maximal black runs are extracted with
    two shifted compares + one page cumsum and scattered into fixed-size

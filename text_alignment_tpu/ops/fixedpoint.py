@@ -1,7 +1,7 @@
 """Shared fixed-point integer angle math for skew detection and rotation.
 
-The host oracle and the TPU kernels must produce *identical* pixels, but
-float32 (TPU) vs float64 (numpy) trig would disagree on rounding at pixel
+The host oracle and the device kernels must produce *identical* pixels, but
+float32 (device) vs float64 (numpy) trig would disagree on rounding at pixel
 boundaries. Instead, all trig is evaluated once on the host in float64, then
 quantized to Q16 fixed point; both paths evaluate the same integer formula
 (int32-safe for page dimensions up to 8192), making rotation and shear

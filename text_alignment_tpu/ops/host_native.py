@@ -1,9 +1,11 @@
 """ctypes bindings for the native C++ host raster engine (native/raster.cpp).
 
-Compiled on first use with g++ (cached in ~/.cache); every function is a
-semantics-exact accelerated version of the numpy oracle (tested in
-tests/test_native.py). ``available()`` gates use — import never fails when a
-toolchain is missing, callers fall back to the oracle.
+Compiled on first use with g++ into ``<checkout>/.cache/native`` (listed
+in ``.gitignore``); every function is a semantics-exact accelerated
+version of the numpy oracle (tested in tests/test_native.py).
+``available()`` gates use — import never fails when a toolchain is
+missing: callers fall back to the oracle, and the build error is reported
+once on stderr (``load_error()`` returns it).
 """
 
 from __future__ import annotations
@@ -12,8 +14,11 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import sys
 
 import numpy as np
+
+from ..utils.compile_cache import LOCAL_CACHE
 
 def _find_src() -> str:
     """Locate native/raster.cpp: the repo layout (native/ beside the
@@ -44,17 +49,17 @@ def _build_and_load():
         with open(_SRC, "rb") as f:
             src = f.read()
         tag = hashlib.sha256(src).hexdigest()[:16]
-        cache_dir = os.path.join(
-            os.path.expanduser("~"), ".cache", "text_alignment_tpu_native"
-        )
-        os.makedirs(cache_dir, exist_ok=True)
-        so_path = os.path.join(cache_dir, f"raster_{tag}.so")
+        build_dir = os.path.join(LOCAL_CACHE, "native")
+        os.makedirs(build_dir, exist_ok=True)
+        so_path = os.path.join(build_dir, f"raster_{tag}.so")
         if not os.path.exists(so_path):
-            tmp = so_path + ".tmp"
-            subprocess.check_call(
+            # per-process temp name: concurrent first users (test workers,
+            # server processes) each build and atomically publish
+            tmp = f"{so_path}.{os.getpid()}.tmp"
+            subprocess.run(
                 ["g++", "-O3", "-march=native", "-shared", "-fPIC",
                  "-o", tmp, _SRC],
-                stderr=subprocess.DEVNULL,
+                check=True, capture_output=True, text=True,
             )
             os.replace(tmp, so_path)
         lib = ctypes.CDLL(so_path)
@@ -117,12 +122,22 @@ def _build_and_load():
         assert lib.ta_abi_version() == 14
         _lib = lib
     except Exception as e:  # no toolchain / build failure -> oracle fallback
-        _load_error = repr(e)
+        detail = getattr(e, "stderr", None) or ""
+        _load_error = f"{e!r} {detail}".strip()
+        print(f"native raster engine unavailable, using the numpy oracle: "
+              f"{_load_error}", file=sys.stderr)
 
 
 def available() -> bool:
     _build_and_load()
     return _lib is not None
+
+
+def load_error() -> str | None:
+    """Why the native engine did not load (None when it loaded or has
+    not been tried)."""
+    _build_and_load()
+    return _load_error
 
 
 def _as_u8(img: np.ndarray) -> np.ndarray:

@@ -3,7 +3,7 @@
 The reference delegates all raster work to Gamera 3.4.3 C++ plugins
 (SURVEY.md §2.9; call sites in textAlignPreprocessing.py:160-285). Gamera is
 not runnable here, so this module *defines* the canonical semantics of each
-operation for the new framework; the TPU kernels in ``ops.device`` are tested
+operation for the new framework; the device kernels in ``ops.device`` are tested
 bit-exactly against it. Where Gamera's exact behavior is ambiguous from its
 docs, the choice is documented inline.
 

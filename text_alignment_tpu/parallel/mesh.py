@@ -1,10 +1,11 @@
-"""Device-mesh construction for multi-chip scale-out.
+"""Device-mesh construction for multi-device scale-out.
 
 The reference's only concurrency was two ocropus worker processes and
 Rodan-level job fan-out (SURVEY.md §2, alignToOCR.py:24,143). Here the
 scale-out story is a JAX mesh: folios/line-batches are data-parallel over
-ICI, with an optional model axis for sharding the recognizer's widest
-matmuls. No custom comm layer: XLA emits the collectives.
+the devices, with an optional model axis for sharding the recognizer's
+widest matmuls. Meshes are plain device lists (every device reaches every
+other at the same rate); no custom comm layer: XLA emits the collectives.
 """
 
 from __future__ import annotations
@@ -15,19 +16,14 @@ from jax.sharding import Mesh
 
 
 def _devices_for(n: int | None):
-    """Devices of the default backend, falling back to the CPU backend when
-    the default can't supply n devices (e.g. one real TPU available but a
-    dry run wants an 8-way virtual CPU mesh via
-    --xla_force_host_platform_device_count)."""
+    """The default backend's devices; raises when it has fewer than n (a
+    mesh never borrows devices from another backend)."""
     devs = jax.devices()
     if n is not None and len(devs) < n:
-        cpu = jax.devices("cpu")
-        if len(cpu) >= n:
-            devs = cpu
-        else:
-            raise ValueError(
-                f"need {n} devices; have {len(devs)} default / {len(cpu)} cpu"
-            )
+        raise ValueError(
+            f"need {n} devices; the {devs[0].platform} backend has "
+            f"{len(devs)}"
+        )
     return devs
 
 

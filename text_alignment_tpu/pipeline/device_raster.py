@@ -1,8 +1,8 @@
 """Device-resident batched raster stream (ops.raster_device wiring).
 
-The stage-major batched pipeline's wall is the single host vCPU running
-the raster (docs/DESIGN.md). In this mode the host keeps only greyscale +
-Otsu + binarize + packbits (~3-4 ms/folio) and everything else — the
+The host raster is the stage-major batched pipeline's biggest host item.
+In this mode the host keeps only greyscale + Otsu + binarize + packbits
+and everything else — the
 despeckle/CC cleanup, the skew search, rotation, erosion, projection, the
 separator-masked CC stats and the line-strip cutting — happens on the
 accelerator against a device-resident page:

@@ -8,11 +8,11 @@ All engines produce identical pixels/strips:
 - ``backend="hybrid"``— the native C++ raster engine (:mod:`..ops.
   host_native`, union-find CC / run filters) with numpy for the rest; the
   production default for the raster stage. Connected-component labeling is
-  branch-heavy integer chasing — a union-find in C++ runs the whole page in
-  ~10 ms, while the equivalent XLA program at page shape is a known
-  compile-time pathology on remote-compile TPU runtimes. The FLOP-heavy
-  stages (recognizer, NW) still run on TPU; see ``process()``.
-- ``backend="device"``— JAX/TPU kernels from :mod:`..ops.device`; page
+  branch-heavy integer chasing — a union-find in C++ runs the whole page
+  in milliseconds, while the equivalent pixel-domain XLA program at page
+  shape is a compile-time pathology. The FLOP-heavy stages (recognizer,
+  NW) still run on the device; see ``process()``.
+- ``backend="device"``— JAX kernels from :mod:`..ops.device`; page
   tensors stay on device across the fused op sequence, with only the
   projection vector, histogram, and compact CC table coming back to host.
 

@@ -9,35 +9,33 @@ from __future__ import annotations
 import numpy as np
 
 
-def _font(size):
-    from PIL import ImageFont
+from ..textio import pillow
 
+
+def _font(size):
+    ImageFont = pillow().ImageFont
     try:
         return ImageFont.truetype("FreeMono.ttf", size)
-    except Exception:
+    except OSError:
         return ImageFont.load_default()
 
 
 def _to_pil_grey(image: np.ndarray):
-    from PIL import Image
-
     if image.dtype == bool:
         arr = np.where(image, 0, 255).astype(np.uint8)
     else:
         arr = np.asarray(image).astype(np.uint8)
         if arr.ndim == 3:
             arr = arr.mean(axis=2).astype(np.uint8)
-    return Image.fromarray(arr, mode="L")
+    return pillow().Image.fromarray(arr, mode="L")
 
 
 def draw_results_on_page(image, syl_boxes, lines_peak_locs, out_path=None):
     """Render syllable boxes + line markers (alignToOCR.py:354-375)."""
-    from PIL import ImageDraw
-
     im = _to_pil_grey(image)
     text_size = max(10, im.width // 64)
     fnt = _font(text_size)
-    draw = ImageDraw.Draw(im)
+    draw = pillow().ImageDraw.Draw(im)
 
     for cbox in syl_boxes:
         if cbox.char in ". ":
@@ -60,10 +58,8 @@ def draw_results_on_page(image, syl_boxes, lines_peak_locs, out_path=None):
 def draw_boxes_on_page(image, bboxes, out_path=None, assign_lines=None):
     """MEI-enrichment debug overlay (writeToMEI.py:186-213): the zone
     bboxes assigned to syllable text, plus optional assignment lines."""
-    from PIL import ImageDraw
-
     im = _to_pil_grey(image)
-    draw = ImageDraw.Draw(im)
+    draw = pillow().ImageDraw.Draw(im)
     for ulx, uly, lrx, lry in bboxes:
         draw.rectangle([int(ulx), int(uly), int(lrx), int(lry)],
                        outline="black")
@@ -76,12 +72,10 @@ def draw_boxes_on_page(image, bboxes, out_path=None, assign_lines=None):
 
 def save_preproc_image(image, cc_strips, lines_peak_locs, out_path=None):
     """Render detected strips + peaks (textAlignPreprocessing.py:425-448)."""
-    from PIL import ImageDraw
-
     im = _to_pil_grey(image).convert("RGB")
     text_size = 70
     fnt = _font(text_size)
-    draw = ImageDraw.Draw(im)
+    draw = pillow().ImageDraw.Draw(im)
 
     for i, peak_loc in enumerate(lines_peak_locs):
         draw.text((1, peak_loc - text_size), "line {}".format(i), font=fnt,

@@ -87,9 +87,9 @@ RESOURCE_TYPES = [
 
 
 def load_text_layer(path: str) -> np.ndarray:
-    from PIL import Image
+    from .textio import read_png
 
-    return np.asarray(Image.open(path))
+    return read_png(path)
 
 
 def run_task(inputs: dict, settings: dict, outputs: dict,

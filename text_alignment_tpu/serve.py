@@ -86,11 +86,11 @@ def _parse_job(spool: str, job_path: str, recognizer):
     existing_ocr | None, out_path). Pickle-read failures fall back to the
     model exactly like pipeline.process's existing_ocr_pickle handling;
     with no model available they are job errors instead."""
-    from PIL import Image
+    from .textio import read_png
 
     with open(job_path) as f:
         job = json.load(f)
-    raw_image = np.asarray(Image.open(_resolve(spool, job["image"])))
+    raw_image = read_png(_resolve(spool, job["image"]))
     transcript = _load_transcript(spool, job)
     existing_ocr = None
     if job.get("existing_ocr_pickle"):
@@ -193,14 +193,13 @@ def _process_claims_batched(spool, claims, recognizer, backend, verbose):
 def process_job(spool: str, job_path: str, recognizer, backend: str,
                 verbose: bool = False):
     """Run one claimed job file; returns (output path, job dict)."""
-    from PIL import Image
-
     from .pipeline import process, to_JSON_dict
+    from .textio import read_png
 
     with open(job_path) as f:
         job = json.load(f)
 
-    raw_image = np.asarray(Image.open(_resolve(spool, job["image"])))
+    raw_image = read_png(_resolve(spool, job["image"]))
     transcript = _load_transcript(spool, job)
 
     result = process(
@@ -299,9 +298,8 @@ def serve(spool: str, model, backend: str = "hybrid", poll_s: float = 0.2,
 
     ``batch > 1`` drains up to that many pending jobs per sweep through
     the stage-major batched pipeline (one cross-folio OCR dispatch,
-    bucket-vmapped NW) — the throughput mode for backlogged spools, worth
-    ~2x per-job latency at batch 8+ on TPU. Receipts and outputs are
-    identical to one-at-a-time serving."""
+    bucket-vmapped NW) — the throughput mode for backlogged spools.
+    Receipts and outputs are identical to one-at-a-time serving."""
     from .pipeline.process import _resolve_recognizer
     from .utils.compile_cache import ensure_compile_cache
 

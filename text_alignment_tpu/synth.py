@@ -126,6 +126,17 @@ def make_page(rng=None, n_lines: int = 6, words_per_line: int = 4,
     return SynthPage(rgb, transcript, boxes, baselines, angle)
 
 
+def bench_page(seed: int) -> SynthPage:
+    """A bench-sized folio: 2000x1600, 10 lines of 3 words, 70x40 glyphs,
+    speckles and a 0.8 degree skew (the benchmark's and the GPU smoke
+    test's page geometry)."""
+    return make_page(
+        np.random.default_rng(seed), n_lines=10, words_per_line=3,
+        H=2000, W=1600, char_h=70, char_w=40, gap=8, space_w=60,
+        line_spacing=180, speckles=200, margin_x=60, angle=0.8,
+    )
+
+
 def corrupt_ocr(rng, char_boxes, sub_rate=0.08, del_rate=0.03,
                 alphabet="abcdefghijklmnopqrstuvwxyz"):
     """Simulate OCR errors over the ground-truth char stream: the aligner's

@@ -1,6 +1,6 @@
 """Per-stage timing/tracing — first-class observability the reference lacked
 (SURVEY.md §5: bare prints only). Wraps stages in context managers and can
-emit a JAX profiler trace for TPU work.
+emit a JAX profiler trace for device work.
 """
 
 from __future__ import annotations
@@ -63,8 +63,8 @@ class CompileLog:
     """Per-program XLA compile-time attribution (captured, not estimated).
 
     Parses jax's ``jax_log_compiles`` messages ("Finished XLA compilation of
-    jit(foo) in 1.23 sec") into ``entries`` — the lever VERDICT r2 asked for
-    to make cold-start cost visible program by program."""
+    jit(foo) in 1.23 sec") into ``entries``, which makes cold-start cost
+    visible program by program."""
 
     def __init__(self):
         self.entries: list[tuple[str, float]] = []

@@ -33,8 +33,6 @@ import os
 import re
 from dataclasses import dataclass, field
 
-import numpy as np
-
 # manuscript -> (chant-CSV filename hint, needs mapping.csv, model hint)
 # (reference alignToOCR.py:387-405 manuscript blocks)
 _MANUSCRIPTS = {
@@ -197,9 +195,9 @@ def verify(assets: str, manuscript: str | None = None, folios=None,
             fr.detail = "no OCR source (no pik cache, no .pyrnn.gz model)"
             continue
         fr.ocr_source = "pik" if use_pik else os.path.basename(model)
-        from PIL import Image
+        from .textio import read_png
 
-        raw = np.asarray(Image.open(png_path))
+        raw = read_png(png_path)
         try:
             result = process(
                 raw, text, ocropus_model=None if use_pik else model,
